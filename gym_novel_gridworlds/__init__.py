@@ -3,7 +3,7 @@
 Reference users do ``import gym_novel_gridworlds`` and then either
 ``gym.make('NovelGridworld-*')`` or construct env classes / wrappers directly
 (reference ``gym_novel_gridworlds/__init__.py:1-60``).  This package keeps
-that exact import surface working on top of the TPU-native ``ngx`` engine:
+that exact import surface working on top of the batched JAX ``ngx`` engine:
 
 * the 11 env classes under :mod:`gym_novel_gridworlds.envs`
 * ``constant.env_key`` keyboard maps
@@ -56,7 +56,7 @@ _ENTRY_POINTS = {
 def _register_with_gym():
     """Mirror the reference's 11 ``gym.register`` calls
     (reference ``__init__.py:7-60``) when a gym is importable.  Gated: the
-    TPU image ships no gym, and the engine does not need one."""
+    engine does not need gym, and most installs lack it."""
     try:
         from gym.envs.registration import register
     except Exception:  # pragma: no cover - no gym in the image

@@ -1,7 +1,7 @@
 """The 11 reference env classes as facade constructors.
 
 Each class name matches the reference's ``envs/__init__.py:1-13`` export; a
-call returns an :class:`ngx.compat.NGXEnv` backed by the jitted TPU kernel
+call returns an :class:`ngx.compat.NGXEnv` backed by the jitted step kernel
 with the same attribute/method surface (``reset/step/render``, ``items_id``,
 ``actions_id``, ``inventory_items_quantity``, restore-chaining ``env=`` ctor
 arg, mutation hooks).  Constructor signatures match the reference

@@ -1,10 +1,10 @@
-"""ngx — a TPU-native NovelGridworlds engine.
+"""ngx — a batched JAX NovelGridworlds engine.
 
 A from-scratch JAX/XLA re-design of the capabilities of
 ``gtatiya/gym-novel-gridworlds``: every environment is a declarative
 :class:`~ngx.core.spec.EnvSpec`, the step is one fused branchless kernel
 (:mod:`ngx.core.step`) that batches under ``jit(vmap(...))`` and shards over a
-TPU device mesh (:mod:`ngx.parallel`), observation/action wrappers are pure
+device mesh (:mod:`ngx.parallel`), observation/action wrappers are pure
 transforms (:mod:`ngx.transforms`), and the 13 novelty injections are spec
 rewrites (:mod:`ngx.novelty`).
 """

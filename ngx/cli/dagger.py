@@ -24,6 +24,8 @@ import os
 
 import numpy as np
 
+from . import PLATFORMS, set_platform
+
 
 def collect_policy_labeled(env_id: str, params, hidden, episodes: int,
                            cap: int, seed: int, mix_expert: float = 0.0):
@@ -97,11 +99,9 @@ def main(argv=None):
                         "into solve rate under the stochastic eval protocol) "
                         "and keeps the best-scoring variant")
     p.add_argument("-seed", type=int, default=0)
-    p.add_argument("-platform", default="cpu", choices=("cpu", "tpu", "auto"),
-                   help="host-loopy rollouts + tiny MLP fits: CPU default")
+    p.add_argument("-platform", default="auto", choices=PLATFORMS)
     args = p.parse_args(argv)
 
-    from . import set_platform
     set_platform(args.platform)
 
     import jax
@@ -132,11 +132,10 @@ def main(argv=None):
     def sharpened(params, tau):
         if tau == 1:
             return params
-        import flax
-        flat = flax.traverse_util.flatten_dict(params)
-        flat = {k: (v * tau if "pi_out" in k else v)
-                for k, v in flat.items()}
-        return flax.traverse_util.unflatten_dict(flat)
+        return jax.tree_util.tree_map_with_path(
+            lambda path, v: v * tau if any(
+                getattr(k, "key", None) == "pi_out" for k in path) else v,
+            params)
 
     taus = [float(t) for t in args.sharpen.split(",")]
     best = None

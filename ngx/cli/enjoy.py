@@ -23,6 +23,8 @@ import os
 
 import numpy as np
 
+from . import PLATFORMS, set_platform
+
 
 def load_policy(ckpt, spec):
     import jax
@@ -99,13 +101,12 @@ def main(argv=None):
     p.add_argument("-render", action="store_true")
     p.add_argument("-num_beams", type=int, default=8)
     p.add_argument("-seed", type=int, default=0)
-    p.add_argument("-platform", default="cpu", choices=("cpu", "tpu", "auto"),
-                   help="device for this single-env driver (default cpu: "
-                        "B=1 stepping is dispatch-latency-bound; keeps the "
-                        "chip free for training)")
+    p.add_argument("-platform", default="cpu", choices=PLATFORMS,
+                   help="single-env driver: every step is one host "
+                        "round-trip, which the host CPU answers faster "
+                        "than a device launch (default cpu)")
     args = p.parse_args(argv)
 
-    from . import set_platform
     set_platform(args.platform)
     import ngx.compat as C
 

@@ -12,6 +12,8 @@ import argparse
 
 import numpy as np
 
+from . import PLATFORMS, set_platform
+
 
 def main(argv=None):
     p = argparse.ArgumentParser()
@@ -22,10 +24,12 @@ def main(argv=None):
     p.add_argument("-arg2", default="")
     p.add_argument("-render", action="store_true")
     p.add_argument("-seed", type=int, default=-1)
-    p.add_argument("-platform", default="cpu", choices=("cpu", "tpu", "auto"))
+    p.add_argument("-platform", default="cpu", choices=PLATFORMS,
+                   help="single-env driver: every step is one host "
+                        "round-trip, which the host CPU answers faster "
+                        "than a device launch (default cpu)")
     args = p.parse_args(argv)
 
-    from . import set_platform
     set_platform(args.platform)
     import ngx.compat as C
     from ngx.compat.constant import assign_keys

@@ -21,8 +21,8 @@ def main(argv=None):
     p.add_argument("-out", default="")
     args = p.parse_args(argv)
 
-    import matplotlib
-    matplotlib.use("Agg")
+    from ngx.utils.extras import require
+    require("matplotlib", "render").use("Agg")
     import matplotlib.pyplot as plt
 
     from ngx.utils.monitor import load_results, ts2xy

@@ -14,6 +14,8 @@ import argparse
 
 import numpy as np
 
+from . import PLATFORMS, set_platform
+
 
 def main(argv=None):
     p = argparse.ArgumentParser()
@@ -29,10 +31,12 @@ def main(argv=None):
     p.add_argument("-num_beams", type=int, default=8)
     p.add_argument("-out", default="demos.npz")
     p.add_argument("-seed", type=int, default=0)
-    p.add_argument("-platform", default="cpu", choices=("cpu", "tpu", "auto"))
+    p.add_argument("-platform", default="cpu", choices=PLATFORMS,
+                   help="single-env driver: every step is one host "
+                        "round-trip, which the host CPU answers faster "
+                        "than a device launch (default cpu)")
     args = p.parse_args(argv)
 
-    from . import set_platform
     set_platform(args.platform)
     import ngx.compat as C
     env = C.LidarInFront(C.make(args.env), num_beams=args.num_beams)

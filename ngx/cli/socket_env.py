@@ -11,6 +11,8 @@ import argparse
 import json
 import socket
 
+from . import PLATFORMS, set_platform
+
 
 def recv_socket_data(sock, buff=4096):
     data = b""
@@ -58,10 +60,12 @@ def main(argv=None):
     p.add_argument("-port", type=int, default=9000)
     p.add_argument("-render", action="store_true")
     p.add_argument("-max_steps", type=int, default=None)
-    p.add_argument("-platform", default="cpu", choices=("cpu", "tpu", "auto"))
+    p.add_argument("-platform", default="cpu", choices=PLATFORMS,
+                   help="single-env driver: every step is one host "
+                        "round-trip, which the host CPU answers faster "
+                        "than a device launch (default cpu)")
     args = p.parse_args(argv)
 
-    from . import set_platform
     set_platform(args.platform)
     import ngx.compat as C
     serve(C.make(args.env), args.host, args.port, args.render, args.max_steps)

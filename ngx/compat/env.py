@@ -5,7 +5,7 @@ Mirrors the attribute and method surface of the reference env classes
 code ports with an import change.  Resets replay the reference's exact
 ``np.random`` draw sequence via :mod:`ngx.core.mirror` (so a user who seeds
 ``np.random.seed(s)`` gets byte-identical maps); set ``reset_mode='native'``
-for the jax-random reset used by the batched/TPU path.
+for the jax-random reset used by the batched device path.
 """
 
 from __future__ import annotations

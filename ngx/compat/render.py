@@ -8,7 +8,8 @@ import numpy as np
 
 
 def render_env(env, mode="human", title=None):
-    import matplotlib
+    from ..utils.extras import require
+    matplotlib = require("matplotlib", "render")
     if mode == "rgb_array":
         matplotlib.use("Agg", force=False)
     import matplotlib.pyplot as plt

@@ -50,7 +50,7 @@ def LimitActions(env: NGXEnv, limited_actions) -> NGXEnv:
     will add; stepping them before that raises the per-step assert), and a
     novelty injected above does not grow the agent-visible space.  The pure
     spec-gather transform (ngx.transforms.actions.limit_actions) remains the
-    batched/TPU path."""
+    batched device path."""
     new = _rewrap(env, env._spec)
     new.limited_actions = set(limited_actions)
     new.limited_actions_id = {a: i for i, a in

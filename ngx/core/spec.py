@@ -7,7 +7,7 @@ as copy-paste clones of two templates (see e.g. reference
 and every novelty transform — is pure *data* in one frozen spec, and a single
 compiled step kernel (:mod:`ngx.core.step`) interprets that data with branchless,
 mask-based arithmetic so thousands of instances step in lockstep under
-``jit(vmap(step))`` on TPU.
+``jit(vmap(step))``.
 
 All tables are host-side ``numpy`` arrays; :func:`ngx.core.step.make_step` closes
 over them so XLA embeds them as constants.

@@ -7,13 +7,24 @@ batches under ``vmap`` and shards over a device mesh along the env axis.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree (every field is a leaf,
+    flattened in declaration order), with a ``replace`` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    names = [f.name for f in dataclasses.fields(cls)]
+    return jax.tree_util.register_dataclass(cls, data_fields=names,
+                                            meta_fields=[])
+
+
+@_pytree_dataclass
 class StepInfo:
     """Device-side encoding of the reference ``info`` dict
     (pogostick_v1_env.py:359). Strings live host-side; see ngx.compat."""
@@ -24,13 +35,11 @@ class StepInfo:
     msg_arg: jnp.ndarray     # int32 — item id / recipe idx parameter
 
 
-@struct.dataclass
+@_pytree_dataclass
 class EnvState:
     # The map is stored FLAT, row-major int32[H*W] (use ``.map2d`` for the
-    # [H, W] view).  TPU tiling pads the two minor dims of an array to the
-    # (8, 128) tile, so a batched [B, 10, 10] map would be laid out as
-    # [B, 16, 128] — a ~20x lane/bandwidth waste on every map-wide op in the
-    # step kernel.  [B, 100] tiles to [B(↑8), 128]: 1.28x padding instead.
+    # [H, W] view): every map-wide op in the step kernel is then a plain
+    # [B, H*W] elementwise pass with no small trailing dimension.
     map: jnp.ndarray         # int32[H*W], row-major; 0 == air
     agent: jnp.ndarray       # int32[2] (row, col)
     facing: jnp.ndarray      # int32 — NORTH/SOUTH/WEST/EAST = 0/1/2/3
@@ -89,11 +98,10 @@ def make_state_packers(spec):
     """Lossless bit-packing of a BATCHED EnvState into a compact int32
     carry — the HBM-bytes lever for scan-carried rollouts.
 
-    Pays where the rollout is carry/latency-bound — measured +13-16% at
-    the 8,192-env north-star batch; at the 262k saturation batch the
-    kernel is compute-bound and the extra shift/mask work LOSES 38%, so
-    bench.py uses packing only at the headline batch (the roofline
-    falsification experiment, docs/PERF.md).  Layout (per env):
+    Whether it pays depends on the regime: it trades carry bytes for
+    shift/mask work per step, so it can help where the rollout is
+    carry-bound and cost where it is compute-bound (``bench.py`` runs both
+    forms at the headline batch).  Layout (per env):
 
     * map: 6 cells x 5 bits per word (item ids < 32 — ``max_items=20``
       bounds the reference id space, pogostick_v1_env.py:75) —

@@ -1,5 +1,1 @@
 from . import rays  # noqa: F401
-from .pallas_rollout import (  # noqa: F401
-    make_pallas_rollout,
-    supports_pallas_rollout,
-)

@@ -2,7 +2,7 @@
 
 The reference marches each beam cell-by-cell in Python until it hits a block
 (``observation_wrappers.py:52-64``, ``novel_gridworld_v0_env.py:158-169``) —
-O(beams × range) map probes per step.  On TPU we precompute, at trace time and
+O(beams × range) map probes per step.  Here we precompute, at trace time and
 with the *exact same* ``np.round(cos/sin, 2)`` arithmetic, the integer cell
 offsets each beam visits per facing, so the whole scan becomes one gather plus
 an ``argmax`` first-hit reduction: fixed shapes, no data-dependent loops,

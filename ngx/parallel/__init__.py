@@ -88,14 +88,11 @@ def make_spmd_rollout(spec, mesh: Mesh, batch: int, steps: int,
     """Explicit-SPMD rollout via ``shard_map``: every chip runs its own local
     scan over ``batch / mesh.size`` envs, and the only cross-chip traffic is
     the final ``psum`` of the metrics — the pattern to scale the env axis
-    across a pod slice (ICI collectives inserted exactly where written).
+    across devices (collectives inserted exactly where written).
 
     ``packed=True`` carries each shard's state bit-packed through the local
     scan (``ngx.core.state.make_state_packers`` — lossless, bit-identical
-    results): on real pods the per-chip batch typically sits in the
-    carry-bound regime where packing measured +13-16% (docs/PERF.md
-    roofline; it LOSES at the 262k single-chip saturation batch, so it is
-    opt-in here too).
+    results); opt-in, as in :func:`ngx.vector.throughput_fn`.
 
     Returns ``launch(key) -> (mean_reward, episodes_done)`` (replicated
     scalars)."""
@@ -172,6 +169,76 @@ def make_spmd_rollout(spec, mesh: Mesh, batch: int, steps: int,
         return spmd(keys)
 
     return launch
+
+
+_COLLECTIVE_KINDS = ("all-reduce", "all-gather", "all-to-all",
+                     "collective-permute", "reduce-scatter",
+                     "collective-broadcast", "ragged-all-to-all")
+_DTYPE_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
+                "bf16": 2, "f16": 2, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
+                "pred": 1}
+
+
+def collective_instrs(hlo_text: str):
+    """``(kind, nbytes, line)`` for every collective instruction in
+    post-optimization HLO text (``compiled.as_text()``).  Bytes = the op's
+    result payload."""
+    import re
+
+    out = []
+    for line in hlo_text.splitlines():
+        ls = line.strip()
+        m = re.match(r"(?:ROOT\s+)?%?\S+\s*=\s*(.+?)\s+"
+                     r"(" + "|".join(_COLLECTIVE_KINDS) + r")(?:-start)?\(",
+                     ls)
+        if not m:
+            continue
+        shapes, kind = m.group(1), m.group(2)
+        nbytes = 0
+        for dt, dims in re.findall(r"(\w+)\[([\d,]*)\]", shapes):
+            if dt not in _DTYPE_BYTES:
+                continue
+            n = 1
+            for d in dims.split(","):
+                if d:
+                    n *= int(d)
+            nbytes += n * _DTYPE_BYTES[dt]
+        out.append((kind, nbytes, ls[:160]))
+    return out
+
+
+def audit_train_step_collectives(hlo_text: str, params, env_state):
+    """Check the compiled sharded PPO train step moves only what data
+    parallelism needs: every collective is an all-reduce, and each is either
+    (a) a gradient sync — per-leaf or fused, each at most the parameter
+    payload plus 1 KiB of scalar statistics the compiler may fuse into it
+    (XLA:GPU concatenates the loss psums into the gradient buffer), together
+    at most twice the payload — or (b) a scalar-sized statistic (advantage
+    moments, metric sums), under 1% of the env-state bytes.  No env-state
+    collective may appear.  Raises AssertionError naming the offending
+    instructions; returns a summary dict."""
+    cols = collective_instrs(hlo_text)
+    kinds = {k for k, _, _ in cols}
+    assert kinds == {"all-reduce"}, ("collectives other than all-reduce",
+                                     sorted(kinds), cols)
+    params_bytes = int(sum(np.prod(x.shape) * x.dtype.itemsize
+                           for x in jax.tree_util.tree_leaves(params)))
+    state_bytes = int(sum(np.prod(x.shape) * x.dtype.itemsize
+                          for x in jax.tree_util.tree_leaves(env_state)))
+    scalar_bytes = 1024
+    grad_ars = [c for c in cols if c[1] > scalar_bytes]
+    small_ars = [c for c in cols if c[1] <= scalar_bytes]
+    assert grad_ars, ("no gradient all-reduce", cols)
+    assert all(b <= params_bytes + scalar_bytes for _, b, _ in grad_ars), (
+        "all-reduce larger than the parameters", params_bytes, grad_ars)
+    grad_total = sum(b for _, b, _ in grad_ars)
+    assert grad_total <= 2 * params_bytes, (grad_total, params_bytes)
+    assert all(b < state_bytes // 100 for _, b, _ in small_ars), (
+        "non-scalar statistic all-reduce", small_ars)
+    return {"gradient_all_reduces": len(grad_ars),
+            "gradient_bytes": grad_total, "params_bytes": params_bytes,
+            "scalar_all_reduces": len(small_ars),
+            "scalar_bytes": sum(b for _, b, _ in small_ars)}
 
 
 def episode_metrics(traj: Trajectory):

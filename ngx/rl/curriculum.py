@@ -1,5 +1,5 @@
 """Batched curriculum training — the reference's restore-chaining sweep
-(``tests/train_last_agent.py:72-94``) rebuilt TPU-native.
+(``tests/train_last_agent.py:72-94``) rebuilt as batched device programs.
 
 The reference chains envs by deep-copying the previous env's terminal state
 into the next env's reset (restore branch,
@@ -21,8 +21,7 @@ batched and jitted:
   boundary restores a fresh chain-terminal state drawn from a carried pool
   of chain states, re-chained per LAUNCH via ``train_step.refresh_pool``
   (the reference re-runs its chain once per outer episode / ``learn(500)``
-  — coarser than per launch); both acting backends supported, the fused
-  Pallas kernel restoring pool rows in-kernel.
+  — coarser than per launch).
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax.training.train_state import TrainState
 import optax
 
 from ..core.state import EnvState
@@ -41,6 +39,7 @@ from ..core.reset import make_reset
 from ..transforms import lidar_in_front
 from .models import ActorCritic
 from .train import PPOConfig, make_ppo_core
+from .train_state import TrainState
 
 
 def make_state_adapter(src_spec, dst_spec):
@@ -99,7 +98,7 @@ def make_chain_reset(env_ids: Sequence[str], stage_params: Sequence,
                      batch: int, cap: int = 100, hidden=(64, 64)):
     """Build ``chain(key) -> (state[B], obs[B])`` for the LAST env id.
 
-    ``stage_params[k]`` drives stage k (flax params, or None for uniform
+    ``stage_params[k]`` drives stage k (ActorCritic params, or None for uniform
     random actions — the reference uses frozen pre-trained agents,
     ``train_last_agent.py:66-70``).  Each stage runs its batch from the
     restored states for up to ``cap`` steps; each env FREEZES at its first
@@ -225,8 +224,7 @@ def evaluate_chain(env_ids: Sequence[str], stage_params: Sequence,
 
 
 def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
-                     stage_params: Sequence, hidden=None,
-                     rollout_backend: str = "auto", bc_data=None,
+                     stage_params: Sequence, hidden=None, bc_data=None,
                      pool_size: int = None):
     """(init, train_step) for PPO on the LAST env of ``env_ids``, where
     every reset — initial and at episode boundaries — restores a fresh
@@ -234,12 +232,7 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
     the restore branch, ``train_last_agent.py:77-87``).
 
     Boundary resets draw uniformly (with replacement) from a carried pool
-    of ``pool_size`` chain-terminal states.  ``rollout_backend='pallas'``
-    runs the acting loop as
-    the fused Mosaic kernel with ``reset_source='pool'``: boundary restores
-    pick chain-terminal states from the carried pool expanded to
-    ``pool_slots`` iid row draws per env (``'auto'`` picks pallas on TPU
-    when the batch is a multiple of the 128-env block).  ``bc_data`` and
+    of ``pool_size`` chain-terminal states.  ``bc_data`` and
     ``cfg.solve_shaped`` apply the solver recipe (BC-anchored minibatch
     loss + solve-shaped reward) to the chain stage, exactly as in
     :func:`ngx.rl.train.make_train`.
@@ -265,29 +258,8 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
                                    cap=cfg.episode_cap, hidden=hidden)
     step1 = make_step(spec)
     v_step = jax.vmap(step1)
-    get_obs_v = jax.vmap(step1.get_obs)
     model = ActorCritic(n_actions=spec.n_actions, hidden=hidden)
     gae, update = make_ppo_core(cfg, model, bc_data=bc_data)
-
-    assert rollout_backend in ("auto", "xla", "pallas"), rollout_backend
-    use_pallas = (rollout_backend == "pallas"
-                  or (rollout_backend == "auto" and B % 128 == 0
-                      and jax.default_backend() == "tpu"))
-    if use_pallas and B % 128 != 0:
-        raise ValueError(f"rollout_backend='pallas' needs num_envs % 128 "
-                         f"== 0, got {B}")
-    if use_pallas:
-        from ..ops.pallas_rollout import make_pallas_train_rollout
-        R = 4
-        from .train import pick_trainer_block
-        blk, tck = pick_trainer_block(B, T)
-        # spec_start_states=False: chain-terminal restores carry inventory
-        # accumulated across prior stages, voiding the spec's bf16 obs
-        # bound — emit exact f32 obs
-        run_roll = make_pallas_train_rollout(
-            spec, B, T, block=blk, t_chunk=tck, cap=cfg.episode_cap,
-            hidden=hidden, reset_source="pool", pool_slots=R,
-            spec_start_states=False)
 
     def init(key):
         k_env, k_net, k_idx = jax.random.split(key, 3)
@@ -300,7 +272,7 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
             optax.clip_by_global_norm(cfg.max_grad_norm),
             optax.adam(cfg.lr, eps=1e-5),
         )
-        ts = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
+        ts = TrainState.create(params=params, tx=tx)
         # carry a per-env restore baseline: episode budget counts from the
         # restore (the reference gives each chained env its OWN <=100-step
         # loop, enjoy.py:87,107, and its last-stage learn() has no time
@@ -339,39 +311,13 @@ def make_train_chain(cfg: PPOConfig, env_ids: Sequence[str],
             body, (env_state, obs, base), jax.random.split(key, T))
         return env_state, last_obs, base, traj
 
-    if use_pallas:
-        def rollout_pallas(params, env_state, obs, base, pool, pool_obs,
-                           key):
-            k_seed, k_idx = jax.random.split(key)
-            seed = jax.random.randint(k_seed, (), 0,
-                                      jnp.iinfo(jnp.int32).max)
-            # expand the B-row chain pool to R iid row draws per env (the
-            # XLA path's uniform pool pick, pre-gathered outside the kernel)
-            idx = jax.random.randint(k_idx, (B, R), 0, P)
-            poolR = jax.tree_util.tree_map(lambda x: x[idx], pool)
-            env_state, obs_t, action, reward, done, base = run_roll(
-                seed, env_state, params, poolR, base)
-            # logp/value in ONE batched MXU pass — the update's recompute
-            # path, so ratio==1 at epoch 0 (same as make_train's pallas
-            # path; [T, B, ...] layout keeps the env axis shardable)
-            logits, value = model.apply(params, obs_t)
-            logp = jnp.take_along_axis(jax.nn.log_softmax(logits),
-                                       action[..., None], axis=-1)[..., 0]
-            traj = (obs_t, action, logp, value, reward, done)
-            return env_state, get_obs_v(env_state), base, traj
-
-        rollout_fn = rollout_pallas
-    else:
-        rollout_fn = rollout
-
     def train_step(carry, key):
         ts, env_state, obs, ep_ret, base, pool, pool_obs = carry
         _, k_roll, k_upd = jax.random.split(key, 3)
         pre_count = env_state.step_count - base
         env_state, last_obs, base, \
             (obs_t, action, logp, value, reward, done) = \
-            rollout_fn(ts.params, env_state, obs, base, pool, pool_obs,
-                       k_roll)
+            rollout(ts.params, env_state, obs, base, pool, pool_obs, k_roll)
         if cfg.solve_shaped:
             # same shaping as make_train: goal terminations pay exactly
             # reward_done, everything else -1 (kills the farming optimum)

@@ -1,35 +1,63 @@
 """Policy/value networks.
 
 The reference uses SB2's MlpPolicy (two 64-unit tanh layers) over the
-LidarInFront vector (reference ``tests/train.py:122``).  The TPU-native
-default keeps that interface but is MXU-friendly: configurable widths,
-bfloat16 compute with float32 params, and an optional 'model' mesh axis for
-tensor-parallel hidden layers at larger widths.
+LidarInFront vector (reference ``tests/train.py:122``).  ``ActorCritic``
+keeps that interface with configurable widths: separate tanh towers for the
+policy logits and the value, in plain JAX.
+
+The parameter tree is ``{"params": {"pi_0", ..., "pi_out", "v_0", ...,
+"v_out": {"kernel": [in, out], "bias": [out]}}}`` — the layout of the shipped
+``trained_agents/*`` checkpoints — and new layers are initialised with a
+truncated LeCun-normal kernel and a zero bias.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 
-class ActorCritic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ActorCritic:
     n_actions: int
     hidden: Sequence[int] = (64, 64)
-    dtype: jnp.dtype = jnp.float32     # set bfloat16 for MXU-heavy widths
 
-    @nn.compact
-    def __call__(self, obs):
-        x = obs.astype(self.dtype)
-        a = x
-        for i, h in enumerate(self.hidden):
-            a = nn.tanh(nn.Dense(h, name=f"pi_{i}", dtype=self.dtype)(a))
-        logits = nn.Dense(self.n_actions, name="pi_out",
-                          dtype=jnp.float32)(a)
-        v = x
-        for i, h in enumerate(self.hidden):
-            v = nn.tanh(nn.Dense(h, name=f"v_{i}", dtype=self.dtype)(v))
-        value = nn.Dense(1, name="v_out", dtype=jnp.float32)(v)
-        return logits, value[..., 0]
+    def _layers(self, in_dim: int):
+        """(name, in, out) of every dense layer, policy tower first."""
+        out = []
+        for tower, head in (("pi", self.n_actions), ("v", 1)):
+            d = in_dim
+            for i, h in enumerate(self.hidden):
+                out.append((f"{tower}_{i}", d, h))
+                d = h
+            out.append((f"{tower}_out", d, head))
+        return out
+
+    def init(self, key, obs):
+        """Fresh variables for observations shaped like ``obs`` [..., D]."""
+        kernel_init = jax.nn.initializers.lecun_normal()
+        layers = self._layers(obs.shape[-1])
+        params = {}
+        for k, (name, d_in, d_out) in zip(jax.random.split(key, len(layers)),
+                                          layers):
+            params[name] = {"kernel": kernel_init(k, (d_in, d_out),
+                                                  jnp.float32),
+                            "bias": jnp.zeros((d_out,), jnp.float32)}
+        return {"params": params}
+
+    def apply(self, variables, obs):
+        """``obs [..., D] -> (logits [..., A], value [...])``."""
+        p = variables["params"]
+        x = obs.astype(jnp.float32)
+
+        def tower(name):
+            h = x
+            for i in range(len(self.hidden)):
+                h = jnp.tanh(h @ p[f"{name}_{i}"]["kernel"]
+                             + p[f"{name}_{i}"]["bias"])
+            return h @ p[f"{name}_out"]["kernel"] + p[f"{name}_out"]["bias"]
+
+        return tower("pi"), tower("v")[..., 0]

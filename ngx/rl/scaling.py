@@ -1,7 +1,7 @@
 """Scaling measurement for the sharded train step (BASELINE.md's >=80%
 multi-device efficiency target).
 
-Two measurements over 1/2/4/..N-device meshes (real chips on a pod slice;
+Two measurements over 1/2/4/..N-device meshes (real devices;
 virtual CPU devices under ``--xla_force_host_platform_device_count`` give a
 sharding-overhead proxy on one host):
 
@@ -52,7 +52,7 @@ def measure_scaling(device_counts=(1, 2, 4, 8), per_device_batch: int = 256,
         cfg = PPOConfig(env_id=env_id, num_envs=B,
                         rollout_steps=rollout_steps, hidden=tuple(hidden))
         with mesh:
-            init, train_step = make_train(cfg, mesh, rollout_backend="xla")
+            init, train_step = make_train(cfg, mesh)
             key = jax.random.key(0)
             carry = init(key)
             step = jax.jit(train_step)
@@ -92,8 +92,8 @@ def main(argv=None):
     p.add_argument("-mode", default="both",
                    choices=("fixed-total", "weak", "both"))
     p.add_argument("-platform", default="cpu", choices=("cpu", "auto"),
-                   help="cpu = 8 virtual host devices (the only multi-device "
-                        "option on this image)")
+                   help="cpu = 8 virtual host devices; auto = the "
+                        "devices JAX finds")
     p.add_argument("-assert_efficiency", type=float, default=0.0,
                    help="exit nonzero if the largest mesh's fixed-total "
                         "efficiency falls below this")

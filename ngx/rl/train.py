@@ -2,10 +2,11 @@
 
 Algorithmic surface mirrors what the reference trains with (SB2 PPO2 defaults,
 reference ``tests/train.py:122,135``: clipped surrogate, GAE, minibatch
-epochs); the execution model is TPU-native: the T×B rollout is a ``lax.scan``
-over the batched env (no host in the loop), the update runs on the same chip,
-and everything jits once over a ``Mesh`` with the env axis sharded — the
-partitioner inserts the gradient all-reduce.
+epochs); the execution model is one device program: the T×B rollout is a
+``lax.scan`` over the batched env (no host in the loop) and the update runs
+on the same device.  Over a ``Mesh`` every device runs that program on its
+own env shard (``shard_map``); the gradient all-reduce is the only
+non-scalar cross-device traffic.
 """
 
 from __future__ import annotations
@@ -18,13 +19,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax.training.train_state import TrainState
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core import spec as S
 from ..transforms import lidar_in_front
 from ..vector import make_vec
 from .models import ActorCritic
+from .train_state import TrainState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +48,7 @@ class PPOConfig:
     # +reward_done only on a goal termination — kills the reward-farming
     # optimum (docs/EVAL.md: repeatable craft/extract loops out-earn the
     # goal under the cap) so PPO optimizes SOLVING; eval still reports the
-    # true env return.  Applied to the rollout rewards post-hoc, so both
-    # acting backends share it.
+    # true env return.  Applied to the rollout rewards post-hoc.
     solve_shaped: bool = False
     # BC anchor: add bc_coef * cross-entropy(policy, expert action) over a
     # demo dataset to every PPO minibatch loss — keeps the expert's
@@ -60,22 +60,8 @@ class PPOConfig:
     # (SB2 semantics; a T*B-element sort per epoch); 'affine' = a random
     # affine bijection i -> (A*i + r) mod N (A odd ~ N is a power of two for
     # the default shapes) — not a uniform permutation, but decorrelates
-    # minibatches just as well for PPO and skips the sort (measured on-chip
-    # A/B in docs/PERF.md).
+    # minibatches just as well for PPO and skips the sort).
     shuffle: str = "permutation"
-
-
-def pick_trainer_block(B_loc: int, T: int):
-    """Measured block/t_chunk frontier for the fused trainer kernel
-    (docs/PERF.md round-5 tables): block 256 wins at every shape once the
-    per-device batch allows it — (256, 16) in the T∈[32,128] sweet spot
-    (5.62M acting at T=64), (256, 64) elsewhere (7.16M at T=256, 4.82M at
-    the T=40 solver shape).  128/64 covers non-256-divisible batches.
-    Every config COMPILES since the scoped-VMEM fix (docs/MOSAIC_BUGS.md)
-    — this is a measured preference, not a crash boundary."""
-    if B_loc % 256 == 0:
-        return 256, (16 if (T % 16 == 0 and 32 <= T <= 128) else 64)
-    return 128, 64
 
 
 def _flat_obs(spec):
@@ -200,20 +186,18 @@ def make_ppo_core(cfg: PPOConfig, model, bc_data=None, axis_name=None):
 
 
 def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
-               spec_override=None, rollout_backend: str = "auto",
-               bc_data=None):
+               spec_override=None, bc_data=None):
     """Returns (init_fn, train_step_fn).
 
     init_fn(key) -> (train_state, env_state, obs, ep_returns)
     train_step_fn(carry, key) -> (carry, metrics)  — one rollout+update cycle,
     fully jitted.  ``spec_override`` trains on a custom (e.g. novelty-
-    injected) spec instead of the plain preset.
+    injected) spec instead of the plain preset.  The acting loop is a
+    ``lax.scan`` over the batched env (:func:`ngx.vector.make_vec`).  With a
+    ``mesh`` the env batch is sharded over its 1-D ``env`` axis.
 
-    ``rollout_backend``: 'xla' = the lax.scan acting loop; 'pallas' = the
-    fused Mosaic acting kernel (ngx.ops.pallas_rollout.
-    make_pallas_train_rollout — measured 15x the XLA acting loop on the
-    chip, docs/PERF.md); 'auto' picks pallas on TPU backends for specs the
-    kernel supports, single-mesh only (the XLA path is the sharded one).
+    ``train_step.rollout`` and ``train_step.learn`` are the two halves of
+    the step (the acting loop, and GAE + the update epochs), jittable apart.
     """
     spec = spec_override or __import__("ngx").make_spec(cfg.env_id)
     if spec.obs_mode != S.OBS_LIDAR_FRONT:
@@ -222,50 +206,12 @@ def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
     # reference tests/train.py:104-122): at a done/cap boundary the policy
     # acts on the RESET observation, and the cap-reset rides the same
     # done-gated lax.cond as the terminal reset — no unconditional
-    # full-batch reset in the rollout jaxpr.  This also matches the Pallas
-    # backend, which recomputes obs from the carried (reset) state
-    # in-kernel, so the two backends agree at episode boundaries.
+    # full-batch reset in the rollout jaxpr.
     vec = make_vec(spec, episode_cap=cfg.episode_cap, reset_obs=True)
     model = ActorCritic(n_actions=spec.n_actions, hidden=cfg.hidden)
 
     B, T = cfg.num_envs, cfg.rollout_steps
     batch_shard = (NamedSharding(mesh, P("env")) if mesh is not None else None)
-
-    if mesh is not None:
-        # pallas_call outputs / pmean'd-update outputs carry no
-        # varying-mesh-axes metadata, so the replication check must be off
-        import functools
-        try:
-            from jax import shard_map as _sm
-            _shard_map = functools.partial(_sm, check_vma=False)
-        except ImportError:      # older jax
-            from jax.experimental.shard_map import shard_map as _sme
-            _shard_map = functools.partial(_sme, check_rep=False)
-
-    assert rollout_backend in ("auto", "xla", "pallas"), rollout_backend
-    use_pallas = False
-    if rollout_backend != "xla":
-        n_dev = 1 if mesh is None else mesh.size
-        gate_fail = None
-        # the in-kernel reset covers every spec since round 4 (novelty
-        # percent-fills, wall-coin, tap pre-placement) — only the batch
-        # geometry gates the backend now
-        if (B // n_dev) % 128 != 0:
-            gate_fail = (f"per-device batch {B // n_dev} is not a multiple "
-                         "of the 128-env block")
-        if gate_fail is None:
-            # auto: single-device TPU only; explicit 'pallas' also covers a
-            # mesh (the kernel runs per-shard under shard_map, see
-            # rollout_pallas)
-            use_pallas = (rollout_backend == "pallas"
-                          or (mesh is None
-                              and jax.default_backend() == "tpu"))
-        elif rollout_backend == "pallas":
-            # an EXPLICIT pallas request must not silently downgrade — a
-            # perf A/B or a pinned training run would quietly measure XLA
-            raise ValueError(
-                f"rollout_backend='pallas' unavailable: {gate_fail}; use "
-                "'auto' or 'xla'")
 
     def init(key):
         k_env, k_net = jax.random.split(key)
@@ -278,26 +224,47 @@ def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
             optax.clip_by_global_norm(cfg.max_grad_norm),
             optax.adam(cfg.lr, eps=1e-5),
         )
-        ts = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
+        ts = TrainState.create(params=params, tx=tx)
         ep_ret = jnp.zeros((B,), jnp.float32)
+        if mesh is not None:
+            # every carry leaf lives on the whole mesh: the learner state
+            # replicated, the per-env arrays sharded like the env state
+            ts = jax.device_put(ts, NamedSharding(mesh, P()))
+            ep_ret = jax.device_put(ep_ret, batch_shard)
         return ts, env_state, obs, ep_ret
+
+    # Under a mesh the whole step runs SHARD-LOCAL under shard_map: each
+    # device acts on, scores and minibatches its own env shard, and the only
+    # collectives are the ones written here — the per-minibatch gradient
+    # pmean and the scalar advantage moments (make_ppo_core's axis_name
+    # note) plus the metric psums.  Leaving the acting loop to the
+    # partitioner let the GPU compiler all-gather per-env state every step;
+    # tests/test_distributed.py's compiled-HLO audit checks the result.
+    axis = None if mesh is None else "env"
+    gae, update = make_ppo_core(cfg, model, bc_data=bc_data, axis_name=axis)
+
+    def local_key(key):
+        """Decorrelate the per-shard random streams."""
+        return key if axis is None else jax.random.fold_in(
+            key, jax.lax.axis_index(axis))
+
+    def total(x):
+        """Sum of a per-shard scalar over the whole batch."""
+        return x if axis is None else jax.lax.psum(x, axis)
 
     def policy_step(params, env_state, obs, key):
         k_act, k_reset = jax.random.split(key)
         logits, value = model.apply(params, obs.astype(jnp.float32))
         action = jax.random.categorical(k_act, logits)
-        # take_along_axis (row-local, axis=1) instead of [arange(B), action]:
-        # the advanced-index form gathers over the SHARDED batch axis and
-        # makes XLA all-gather an index pair every rollout step under a mesh
         logp = jnp.take_along_axis(jax.nn.log_softmax(logits),
                                    action[:, None], axis=1)[:, 0]
         # vec handles the episode cap (done for GAE) and returns the reset
         # obs at boundaries (reset_obs=True above)
         env_state, next_obs, reward, done, info = vec.step(
-            env_state, action, jax.random.split(k_reset, B))
+            env_state, action, jax.random.split(k_reset, action.shape[0]))
         return env_state, next_obs, action, logp, value, reward, done
 
-    def rollout_xla(params, env_state, obs, key):
+    def rollout(params, env_state, obs, key):
         def body(carry, key_t):
             env_state, obs = carry
             (env_state, next_obs, action, logp, value, reward, done
@@ -306,157 +273,20 @@ def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
             return (env_state, next_obs), out
 
         (env_state, last_obs), traj = jax.lax.scan(
-            body, (env_state, obs), jax.random.split(key, T))
+            body, (env_state, obs), jax.random.split(local_key(key), T))
         return env_state, last_obs, traj
 
-    if use_pallas:
-        from ..core.step import make_step
-        from ..ops.pallas_rollout import make_pallas_train_rollout
-
-        n_dev = 1 if mesh is None else mesh.size
-        B_loc = B // n_dev
-        # Specs with reset edits / wall-coin / tap pre-placement use the
-        # POOL reset source: boundary resets draw from a per-launch pool of
-        # fresh procedural resets generated by make_xla_pool_reset (the
-        # kernel's scatter-free reset math as plain XLA — distribution-
-        # equivalent to the reference, like the in-kernel native reset)
-        # instead of replicating the percent-fill machinery in-kernel —
-        # replicating it is what pushed
-        # those specs over the (256, 16) Mosaic compile cliff in round 4
-        # (docs/MOSAIC_BUGS.md), locking the reference's train-under-novelty
-        # scenario (tests/train.py:73-89) out of the fast config.  With the
-        # reset outside the kernel every spec shares one step-body size, so
-        # one block/t_chunk frontier serves all.
-        plain_reset = (not spec.reset_edits and not spec.reset_wall_coin
-                       and not spec.reset_place_tap)
-        reset_source = "native" if plain_reset else "pool"
-        blk, tck = pick_trainer_block(B_loc, T)
-        # pool slots: expected in-rollout resets per env is T/mean-episode-
-        # length; slots cycle beyond that (documented reuse).  4 covers the
-        # trainer shapes (T<=64, episodes >=~10 steps under any policy that
-        # survives); the pool costs B*slots vmapped XLA resets per launch.
-        run_roll = make_pallas_train_rollout(
-            spec, B_loc, T, block=blk, t_chunk=tck, cap=cfg.episode_cap,
-            hidden=tuple(cfg.hidden), reset_source=reset_source,
-            pool_slots=4)
-        get_obs_v = jax.vmap(make_step(spec).get_obs)
-        if reset_source == "pool":
-            from ..ops.pallas_rollout import make_xla_pool_reset
-            Rp = run_roll.pool_slots
-            pool_gen = make_xla_pool_reset(spec, B * Rp)
-
-        if mesh is not None:
-            # each device runs the kernel on ITS shard of the env batch:
-            # shard_map over the env axis, params replicated, per-device
-            # seed decorrelated by axis index (the kernel already
-            # decorrelates per env-block within a shard)
-            shard_map = _shard_map
-            from ..core.state import EnvState as _ES
-
-            state_spec = jax.tree_util.tree_map(lambda _: P("env"),
-                                                _ES(*([0] * 10)))
-
-            if reset_source == "pool":
-                def _sharded(seed, st, pp, pool, base):
-                    return run_roll(
-                        seed + jax.lax.axis_index("env") * jnp.int32(612331),
-                        st, pp, pool, base)
-
-                def run_roll_mesh(seed, st, pp, pool, base):
-                    return shard_map(
-                        _sharded, mesh=mesh,
-                        in_specs=(P(), state_spec, P(), state_spec,
-                                  P("env")),
-                        out_specs=(state_spec, P(None, "env"),
-                                   P(None, "env"), P(None, "env"),
-                                   P(None, "env"), P("env")))(
-                        seed, st, pp, pool, base)
-            else:
-                def _sharded(seed, st, pp):
-                    local = run_roll(
-                        seed + jax.lax.axis_index("env") * jnp.int32(612331),
-                        st, pp)
-                    return local
-
-                def run_roll_mesh(seed, st, pp):
-                    return shard_map(
-                        _sharded, mesh=mesh,
-                        in_specs=(P(), state_spec, P()),
-                        out_specs=(state_spec, P(None, "env"),
-                                   P(None, "env"), P(None, "env"),
-                                   P(None, "env")))(seed, st, pp)
-        else:
-            run_roll_mesh = run_roll
-
-        def rollout_pallas(params, env_state, obs, key):
-            # the kernel recomputes obs from state in-kernel (bit-identical
-            # to the carried obs — tests/test_pallas.py); actions come from
-            # the kernel's counter RNG seeded from this step's key
-            if reset_source == "pool":
-                k_seed, k_pool = jax.random.split(key)
-                seed = jax.random.randint(k_seed, (), 0,
-                                          jnp.iinfo(jnp.int32).max)
-                # a fresh pool of B*Rp procedural resets per launch — the
-                # kernel's boundary resets draw slot (reset#) % Rp
-                pool = pool_gen(jax.random.randint(
-                    k_pool, (), 0, jnp.iinfo(jnp.int32).max))
-                pool = jax.tree_util.tree_map(
-                    lambda x: x.reshape((B, Rp) + x.shape[1:]), pool)
-                env_state, obs_t, action, reward, done, _ = run_roll_mesh(
-                    seed, env_state, params, pool,
-                    jnp.zeros((B,), jnp.int32))
-            else:
-                seed = jax.random.randint(key, (), 0,
-                                          jnp.iinfo(jnp.int32).max)
-                env_state, obs_t, action, reward, done = run_roll_mesh(
-                    seed, env_state, params)
-            # logp/value in ONE batched MXU pass over the emitted obs —
-            # exactly the update's recompute path, so ratio==1 at step 0.
-            # Applied in [T, B, ...] layout: reshaping to (T*B, ...) merges
-            # the sharded env axis and would force an all-gather of the
-            # whole trajectory under a mesh (the HLO-audit finding).
-            logits, value = model.apply(params, obs_t)
-            logp = jnp.take_along_axis(jax.nn.log_softmax(logits),
-                                       action[..., None], axis=-1)[..., 0]
-            traj = (obs_t, action, logp, value, reward, done)
-            return env_state, get_obs_v(env_state), traj
-
-        rollout = rollout_pallas
-    else:
-        rollout = rollout_xla
-
-    if mesh is None:
-        gae, update = make_ppo_core(cfg, model, bc_data=bc_data)
-
-        def run_update(ts, traj5, key):
-            flat = jax.tree_util.tree_map(
-                lambda x: x.reshape((T * B,) + x.shape[2:]), traj5)
-            return update(ts, flat, key)
-    else:
-        # SHARD-LOCAL update (see make_ppo_core's axis_name note): each
-        # device flattens/permutes/minibatches its OWN trajectory shard;
-        # the only collectives are the per-minibatch gradient pmean and the
-        # scalar advantage moments — verified structurally by
-        # tests/test_distributed.py::test_hlo_audit_train_step_*.
-        gae, update = make_ppo_core(cfg, model, bc_data=bc_data,
-                                    axis_name="env")
-        B_upd = B // mesh.size
-
-        def _upd_local(ts, traj5, key):
-            flat = jax.tree_util.tree_map(
-                lambda x: x.reshape((T * B_upd,) + x.shape[2:]), traj5)
-            key = jax.random.fold_in(key, jax.lax.axis_index("env"))
-            return update(ts, flat, key)
-
-        _traj5_specs = (P(None, "env", None), P(None, "env"),
-                        P(None, "env"), P(None, "env"), P(None, "env"))
-        _upd_sharded = _shard_map(
-            _upd_local, mesh=mesh,
-            in_specs=(P(), _traj5_specs, P()),
-            out_specs=(P(), P()))
-
-        def run_update(ts, traj5, key):
-            return _upd_sharded(ts, traj5, key)
+    def learn(ts, last_obs, traj, key):
+        """GAE + the PPO update epochs on one collected batch
+        ``traj = (obs, action, logp, value, reward, done)``, each [T, B, ...]
+        (rewards already shaped); returns ``(ts, (pg, v, entropy) losses)``."""
+        obs_t, action, logp, value, reward, done = traj
+        _, last_value = model.apply(ts.params, last_obs)
+        adv, target = gae(value, reward, done, last_value)
+        flat = jax.tree_util.tree_map(
+            lambda x: x.reshape((-1,) + x.shape[2:]),
+            (obs_t, action, logp, adv, target))
+        return update(ts, flat, local_key(key))
 
     def train_step(carry, key):
         ts, env_state, obs, ep_ret = carry
@@ -472,8 +302,6 @@ def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
             solved_step = done & (reward > 0.5 * spec.reward_done)
             reward = jnp.where(solved_step, jnp.float32(spec.reward_done),
                                jnp.float32(-1.0))
-        _, last_value = model.apply(ts.params, last_obs.astype(jnp.float32))
-        adv, target = gae(value, reward, done, last_value)
 
         # episode-return bookkeeping (the Monitor analog, on device):
         # fold the rollout's rewards into per-env running returns, emitting
@@ -512,29 +340,46 @@ def make_train(cfg: PPOConfig, mesh: Optional[Mesh] = None,
                  jnp.int32(0), jnp.int32(0)),
                 (reward, done))
 
-        ts, (pg, vl, ent) = run_update(
-            ts, (obs_t, action, logp, adv, target), k_upd)
+        ts, (pg, vl, ent) = learn(
+            ts, last_obs, (obs_t, action, logp, value, reward, done), k_upd)
         metrics = {
-            "mean_reward": reward.mean(),
-            "episodes": done.sum(),
-            "ep_return_sum": ep_total,
-            "ep_count": ep_count,
-            "ep_solved": ep_solved,
-            "ep_len_sum": ep_len,
+            "mean_reward": total(reward.sum()) / (T * B),
+            "episodes": total(done.sum()),
+            "ep_return_sum": total(ep_total),
+            "ep_count": total(ep_count),
+            "ep_solved": total(ep_solved),
+            "ep_len_sum": total(ep_len),
             "pg_loss": pg.mean(),
             "v_loss": vl.mean(),
             "entropy": ent.mean(),
         }
         return (ts, env_state, last_obs, ep_ret), metrics
 
+    if mesh is not None:
+        # replicated learner state and key, env-sharded everything else
+        # ([T, B, ...] trajectories shard on axis 1); the pmean'd outputs
+        # carry no varying-mesh-axes metadata, so the check is off
+        env, traj_spec, carry_spec = P("env"), P(None, "env"), \
+            (P(), P("env"), P("env"), P("env"))
+        smap = partial(jax.shard_map, mesh=mesh, check_vma=False)
+        step = smap(train_step, in_specs=(carry_spec, P()),
+                    out_specs=(carry_spec, P()))
+        step.rollout = smap(rollout, in_specs=(P(), env, env, P()),
+                            out_specs=(env, env, traj_spec))
+        step.learn = smap(learn, in_specs=(P(), env, traj_spec, P()),
+                          out_specs=(P(), P()))
+        return init, step
+
+    train_step.rollout = rollout
+    train_step.learn = learn
     return init, train_step
 
 
 def train(cfg: PPOConfig, num_updates: int, key=None, mesh: Optional[Mesh] = None,
-          log_every: int = 10, rollout_backend: str = "auto"):
+          log_every: int = 10):
     """Host loop: init once, then num_updates jitted train steps."""
     key = jax.random.key(0) if key is None else key
-    init, train_step = make_train(cfg, mesh, rollout_backend=rollout_backend)
+    init, train_step = make_train(cfg, mesh)
     carry = init(key)
     step = jax.jit(train_step)
     history = []
@@ -550,10 +395,7 @@ def train(cfg: PPOConfig, num_updates: int, key=None, mesh: Optional[Mesh] = Non
 
 def dryrun(n_devices: int) -> None:
     """Driver hook: build an n_devices mesh, jit the FULL train step with the
-    env axis sharded over it, and run ONE step on tiny shapes — BOTH
-    rollout backends: the sharded XLA scan, and the fused Pallas acting
-    kernel per-shard under shard_map (interpret mode off-chip), so the
-    driver artifact covers the whole multi-chip surface."""
+    env axis sharded over it, and run ONE step on tiny shapes."""
     devices = jax.devices()[:n_devices]
     mesh = Mesh(np.asarray(devices), ("env",))
     cfg = PPOConfig(num_envs=4 * n_devices, rollout_steps=4,
@@ -565,15 +407,3 @@ def dryrun(n_devices: int) -> None:
             "env state not sharded over the mesh"
         carry, metrics = jax.jit(train_step)(carry, jax.random.key(1))
         jax.block_until_ready(metrics["mean_reward"])
-
-        # the Pallas acting backend under the same mesh (128-env blocks per
-        # device; the kernel interprets on CPU backends automatically)
-        cfg_p = PPOConfig(num_envs=128 * n_devices, rollout_steps=4,
-                          num_minibatches=2, epochs=1, hidden=(16, 16))
-        init_p, train_step_p = make_train(cfg_p, mesh,
-                                          rollout_backend="pallas")
-        carry_p = init_p(jax.random.key(2))
-        assert len(carry_p[1].map.sharding.device_set) == n_devices
-        carry_p, metrics_p = jax.jit(train_step_p)(carry_p,
-                                                   jax.random.key(3))
-        jax.block_until_ready(metrics_p["mean_reward"])

@@ -12,9 +12,11 @@ import os
 
 import jax
 
+from .extras import require
+
 
 def _checkpointer():
-    import orbax.checkpoint as ocp
+    ocp = require("orbax.checkpoint", "ckpt")
     return ocp.PyTreeCheckpointer()
 
 

@@ -1,7 +1,7 @@
 """NGX_DEBUG=1 — in-kernel invariant asserts (the debug/sanitizer layer).
 
 The reference has no sanitizers (single-threaded Python, SURVEY.md §5); the
-TPU engine's equivalent is jit-compatible invariant checking on the state the
+engine's equivalent is jit-compatible invariant checking on the state the
 kernel produces.  Off by default (zero cost — nothing is inserted into the
 program); with ``NGX_DEBUG=1`` in the environment, ``make_step``/``make_reset``
 append a fused invariant reduction plus ONE host callback per call that raises

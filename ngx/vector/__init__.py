@@ -127,15 +127,14 @@ def throughput_fn(spec, batch: int, steps: int, action_rng: str = "threefry",
     so the whole rollout stays compute-bound.
 
     ``action_rng``/``auto_reset`` exist for the perf breakdown
-    (``ngx.cli.perf``, docs/PERF.md): 'threefry' draws actions with
+    (``ngx.cli.perf``): 'threefry' draws actions with
     jax.random.randint (default), 'hash' with a murmur3-style counter hash
     (one mix per step instead of a threefry block), 'fixed' repeats action 0
     (no RNG at all); ``auto_reset=False`` drops the done->reset cond.
 
     ``packed=True`` carries the state BIT-PACKED through the scan
     (``ngx.core.state.make_state_packers``: ~26 int32 words/env instead of
-    ~118) — the roofline's memory-bound finding says carry bytes are the
-    binding resource; pack/unpack per step is cheap VPU work.  Exact: the
+    ~118), trading carry bytes for shift/mask work per step.  Exact: the
     packing is lossless, so the same key produces bit-identical results to
     the unpacked kernel (tests/test_vector.py)."""
     single_reset = make_reset(spec)

@@ -127,25 +127,3 @@ def test_train_chain_step():
     # restored rows must not be instantly done: with the old total-step cap
     # every pool row with step_count >= cap churned as zero-length episodes
     assert m["episodes"] <= cfg.num_envs * (12 // 2 + 1)
-
-
-def test_train_chain_step_pallas():
-    """The chain trainer through the fused Pallas acting backend
-    (reset_source='pool' — boundary restores draw chain-terminal states
-    in-kernel): finite losses, per-restore episode budget enforced."""
-    cfg = PPOConfig(env_id=CHAIN[2], num_envs=128, rollout_steps=12,
-                    num_minibatches=2, epochs=1, hidden=(16, 16),
-                    episode_cap=8, solve_shaped=True)
-    init, train_step = make_train_chain(cfg, CHAIN[:3], [None, None],
-                                        hidden=(16, 16),
-                                        rollout_backend="pallas")
-    carry = init(jax.random.key(0))
-    carry, metrics = jax.jit(train_step)(carry, jax.random.key(1))
-    m = {k: float(v) for k, v in metrics.items()}
-    assert np.isfinite(m["pg_loss"]) and np.isfinite(m["v_loss"]), m
-    assert m["episodes"] >= cfg.num_envs, m
-    # solve-shaped: every non-goal step pays exactly -1
-    assert m["mean_reward"] <= 0.0
-    # base carries across launches: a second step still buckets correctly
-    carry, m2 = jax.jit(train_step)(carry, jax.random.key(2))
-    assert m2["episodes"] >= cfg.num_envs

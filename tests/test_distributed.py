@@ -3,10 +3,10 @@ devices each join one coordinator and run the shard_map SPMD rollout over a
 single global 8-device mesh; the psum'd metrics must match a single-process
 8-device run of the identical program bit-for-bit.
 
-This is the honest stand-in for multi-host TPU scaling that can't be measured
-on one chip: it exercises ngx.parallel.initialize_distributed (the
-jax.distributed.initialize wrapper) and proves the global-mesh + shard_map +
-psum recipe is process-count invariant.
+This is the stand-in for multi-host scaling on one machine: it exercises
+ngx.parallel.initialize_distributed (the jax.distributed.initialize wrapper)
+and proves the global-mesh + shard_map + psum recipe is process-count
+invariant.
 """
 
 import json
@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 
 import ngx
-from ngx.parallel import make_env_mesh, make_spmd_rollout
+from ngx.parallel import (audit_train_step_collectives, collective_instrs,
+                          make_env_mesh, make_spmd_rollout)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH, STEPS = 64, 12
@@ -85,63 +86,27 @@ def test_two_process_spmd_rollout_matches_single_process():
 def test_scaling_harness_small():
     """The scaling harness runs end-to-end on a tiny config and produces
     sane numbers.  The CI bound is deliberately loose (virtual CPU devices
-    share one host's cores and CI machines vary); the recorded measurement
-    lives in docs/PERF.md."""
+    share one host's cores and CI machines vary)."""
     from ngx.rl.scaling import measure_scaling
 
+    # best of 5 timed steps per mesh: a co-running process on the shared
+    # cores slows single steps, not all of them
     r = measure_scaling(device_counts=(1, 2), per_device_batch=32,
-                        rollout_steps=4, repeats=2, mode="fixed-total",
+                        rollout_steps=4, repeats=5, mode="fixed-total",
                         hidden=(16, 16))
     assert r["throughput"][1] > 0 and r["throughput"][2] > 0
     # sanity-only bound: virtual devices time-share the host's cores, so a
     # co-running process can tank the ratio (observed under a concurrent
-    # eval job); the real efficiency evidence is the idle-host measurement
-    # in docs/PERF.md and the structural HLO audit above
+    # eval job); the structural evidence is the HLO audit below
     assert r["efficiency"][2] > 0.15, r
 
 
 # ---------------------------------------------------------------------------
-# Compiled-HLO collective audit (structural multi-chip evidence): real
-# multi-chip efficiency can't be measured on this one-chip host, so prove the
+# Compiled-HLO collective audit (structural multi-device evidence): prove the
 # sharding layout structurally — the env path compiles to ZERO inter-device
 # collectives and the train step's only cross-device traffic is the gradient
 # all-reduce plus scalar metric/normalization psums.
 # ---------------------------------------------------------------------------
-
-_COLLECTIVE_KINDS = ("all-reduce", "all-gather", "all-to-all",
-                     "collective-permute", "reduce-scatter",
-                     "collective-broadcast", "ragged-all-to-all")
-_DTYPE_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
-                "bf16": 2, "f16": 2, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
-                "pred": 1}
-
-
-def _collective_instrs(hlo_text):
-    """Parse (kind, nbytes, line) for every collective instruction in
-    post-optimization HLO.  Bytes = the op's result tuple payload."""
-    import re
-
-    out = []
-    for line in hlo_text.splitlines():
-        ls = line.strip()
-        m = re.match(r"(?:ROOT\s+)?%?\S+\s*=\s*(.+?)\s+"
-                     r"(" + "|".join(_COLLECTIVE_KINDS) + r")(?:-start)?\(",
-                     ls)
-        if not m:
-            continue
-        shapes, kind = m.group(1), m.group(2)
-        nbytes = 0
-        for dt, dims in re.findall(r"(\w+)\[([\d,]*)\]", shapes):
-            if dt not in _DTYPE_BYTES:
-                continue
-            n = 1
-            for d in dims.split(","):
-                if d:
-                    n *= int(d)
-            nbytes += n * _DTYPE_BYTES[dt]
-        out.append((kind, nbytes, ls[:160]))
-    return out
-
 
 def test_hlo_audit_env_path_has_no_collectives():
     """The sharded SPMD env rollout must compile to exactly the two scalar
@@ -153,7 +118,7 @@ def test_hlo_audit_env_path_has_no_collectives():
     mesh = make_env_mesh()
     launch = make_spmd_rollout(spec, mesh, BATCH, STEPS)
     hlo = jax.jit(launch).lower(jax.random.key(0)).compile().as_text()
-    cols = _collective_instrs(hlo)
+    cols = collective_instrs(hlo)
     kinds = {k for k, _, _ in cols}
     assert kinds <= {"all-reduce"}, cols
     total = sum(b for _, b, _ in cols)
@@ -171,7 +136,7 @@ def test_hlo_audit_train_step_gradient_allreduce_only():
     psums (advantage normalization moments, metric means).  No env-state
     collective (all-gather / permute / reduce-scatter) may appear: the
     rollout stays shard-local under the mesh.  Reports the bytes moved per
-    update for docs/PERF.md."""
+    update."""
     from jax.sharding import Mesh
     from ngx.rl.train import PPOConfig, make_train
 
@@ -183,35 +148,14 @@ def test_hlo_audit_train_step_gradient_allreduce_only():
         carry = init(jax.random.key(0))
         hlo = jax.jit(train_step).lower(
             carry, jax.random.key(1)).compile().as_text()
-    cols = _collective_instrs(hlo)
-    kinds = {k for k, _, _ in cols}
-    assert kinds == {"all-reduce"}, sorted(kinds)
-
-    params_bytes = sum(
-        np.prod(x.shape) * x.dtype.itemsize
-        for x in jax.tree_util.tree_leaves(carry[0].params))
-    grad_ars = [c for c in cols if c[1] > 1024]
-    small_ars = [c for c in cols if c[1] <= 1024]
-    # the gradient sync: every big all-reduce carries (a fusion of) grad
-    # leaves, bounded by the parameter payload; at least one must exist
-    assert grad_ars, cols
-    assert all(b <= params_bytes for _, b, _ in grad_ars), (
-        params_bytes, grad_ars)
-    grad_total = sum(b for _, b, _ in grad_ars)
-    assert grad_total <= 2 * params_bytes, (grad_total, params_bytes)
-    # everything else is scalar/near-scalar statistics (adv moments, metric
-    # means) — nothing remotely env-state-sized
-    state_bytes = sum(
-        np.prod(x.shape) * x.dtype.itemsize
-        for x in jax.tree_util.tree_leaves(carry[1]))
-    assert all(b < state_bytes // 100 for _, b, _ in small_ars), small_ars
-    per_update = (grad_total * cfg.epochs * cfg.num_minibatches
-                  + sum(b for _, b, _ in small_ars))
-    print(f"\ntrain-step collectives: {len(grad_ars)} gradient all-reduce "
-          f"instr(s) totalling {grad_total} bytes (params = {params_bytes} "
-          f"B), {len(small_ars)} scalar psums; approx bytes/update = "
-          f"{per_update} ({cfg.epochs}x{cfg.num_minibatches} minibatch "
-          f"syncs)")
+    r = audit_train_step_collectives(hlo, carry[0].params, carry[1])
+    per_update = (r["gradient_bytes"] * cfg.epochs * cfg.num_minibatches
+                  + r["scalar_bytes"])
+    print(f"\ntrain-step collectives: {r['gradient_all_reduces']} gradient "
+          f"all-reduce instr(s) totalling {r['gradient_bytes']} bytes "
+          f"(params = {r['params_bytes']} B), {r['scalar_all_reduces']} "
+          f"scalar psums; approx bytes/update = {per_update} "
+          f"({cfg.epochs}x{cfg.num_minibatches} minibatch syncs)")
 
 
 def test_mesh_train_step_with_bc_anchor_and_solve_shaping():
@@ -248,6 +192,6 @@ def test_spmd_rollout_packed_carry_bit_identical():
     rb = b(jax.random.key(3))
     assert float(ra[0]) == float(rb[0]) and int(ra[1]) == int(rb[1])
     hlo = jax.jit(b).lower(jax.random.key(3)).compile().as_text()
-    cols = _collective_instrs(hlo)
+    cols = collective_instrs(hlo)
     assert {k for k, _, _ in cols} <= {"all-reduce"}
     assert sum(x for _, x, _ in cols) <= 16, cols

@@ -73,46 +73,3 @@ def test_native_reset_matches_mirror_distribution():
     check_reset_invariants(spec, native_maps,
                            np.asarray(native_states.agent),
                            np.asarray(native_states.facing), n)
-
-
-def test_pool_reset_generator_matches_native_distribution():
-    """make_xla_pool_reset — the trainer's scatter-free pool generator —
-    must match the native jax reset's distribution: same per-cell occupancy,
-    exact item counts, the 4-neighbor-air placement invariant, uniform
-    agent/facing, and (for a novelty spec) the same percent-fill occupancy
-    of the injected item."""
-    from ngx.ops.pallas_rollout import make_xla_pool_reset
-
-    n = 4000
-    # plain spec
-    spec = ngx.make_spec(POGO)
-    gen = jax.jit(make_xla_pool_reset(spec, n))
-    pool = gen(1234)
-    pmaps = np.asarray(pool.map2d)
-    keys = jax.random.split(jax.random.key(1), n)
-    nmaps = np.asarray(
-        jax.jit(jax.vmap(ngx.make_reset(spec)))(keys)[0].map2d)
-    tree = spec.items.index("tree_log")
-    ct = spec.items.index("crafting_table")
-    for item in (tree, ct):
-        np.testing.assert_allclose(occupancy(pmaps, item),
-                                   occupancy(nmaps, item), atol=0.03,
-                                   err_msg=f"pool occupancy item {item}")
-    check_reset_invariants(spec, pmaps, np.asarray(pool.agent),
-                           np.asarray(pool.facing), n)
-    assert (np.asarray(pool.step_count) == 0).all()
-
-    # novelty spec with a percent-fill reset edit (the pool generator's
-    # actual production use: train-under-novelty boundary resets)
-    nspec = ngx.inject_novelty(spec, "fence", "medium", "oak")
-    gen2 = jax.jit(make_xla_pool_reset(nspec, n))
-    pmaps2 = np.asarray(gen2(77).map2d)
-    nmaps2 = np.asarray(jax.jit(jax.vmap(ngx.make_reset(nspec)))(
-        jax.random.split(jax.random.key(2), n))[0].map2d)
-    fence = nspec.items.index("oak_fence")
-    # mean fence occupancy across the map must agree (fence fill is a
-    # two-level draw: p ~ U[50,90), then a p% subset of eligible cells)
-    np.testing.assert_allclose(occupancy(pmaps2, fence).mean(),
-                               occupancy(nmaps2, fence).mean(), atol=0.01)
-    np.testing.assert_allclose(occupancy(pmaps2, fence),
-                               occupancy(nmaps2, fence), atol=0.04)

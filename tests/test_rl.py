@@ -132,3 +132,38 @@ def test_solve_shaped_reward_transform():
     assert 0 <= m["ep_solved"] <= m["ep_count"]
     # episode-length tally: every completed episode has length >= 1
     assert m["ep_len_sum"] >= m["ep_count"]
+
+
+@pytest.mark.parametrize("novelty", [
+    ("firewall", "easy"),
+    ("fence", "medium", "oak"),
+    ("axe", "medium", "wooden", "fence", "easy", "oak"),
+], ids=["firewall-easy", "fence-medium", "axe+fence-stacked"])
+def test_train_step_under_novelty_spec(novelty):
+    """The PPO train step on novelty-injected specs (item-adding novelties,
+    percent-fill reset edits, a stacked pair): finite losses, episode
+    boundaries crossed with auto-resets, and the carried obs stays the
+    observation of the carried state (SB2 reset-obs semantics)."""
+    import ngx
+    from ngx.transforms import lidar_in_front
+
+    spec = ngx.make_spec("NovelGridworld-Pogostick-v1")
+    for i in range(0, len(novelty), 3 if len(novelty) > 3 else len(novelty)):
+        spec = ngx.inject_novelty(spec, *novelty[i:i + 3])
+    cfg = PPOConfig(num_envs=32, rollout_steps=12, num_minibatches=2,
+                    epochs=1, hidden=(16, 16), episode_cap=8)
+    init, train_step = make_train(cfg, spec_override=spec)
+    carry = init(jax.random.key(0))
+    step = jax.jit(train_step)
+    for u in range(2):
+        carry, m = step(carry, jax.random.key(u + 1))
+        m = {k: float(v) for k, v in m.items()}
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert m["episodes"] >= cfg.num_envs, m   # 8-step cap inside T=12
+    lspec = lidar_in_front(spec)
+    get_obs = jax.vmap(ngx.make_step(lspec).get_obs)
+    np.testing.assert_array_equal(np.asarray(carry[2]),
+                                  np.asarray(get_obs(carry[1])))
+    assert carry[2].shape[-1] == int(
+        np.prod(get_obs(carry[1]).shape[1:]))
+    assert int(np.asarray(carry[1].step_count).max()) < cfg.episode_cap
